@@ -1,151 +1,111 @@
-"""Benchmark: Euler pseudo-time march throughput on one chip.
+"""Benchmark: Euler pseudo-time march throughput on one GPU.
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}.
-North-star target (BASELINE.json): > 1e9 cell-updates/sec on a v5e-8 pod,
-i.e. 125e6 cell-updates/sec/chip; vs_baseline = value / 125e6.
+Prints ONE JSON line: {"metric", "value", "unit", "device"}; value is
+cell-updates/s of the case's jitted fori_loop march, timed to
+block_until_ready after a compiling warm-up call. Fails (non-zero exit, no
+result) without a GPU, and raises on any failed phase.
 
-IBX_BENCH_CASE=rae2822 (default, BASELINE workload 2) or sphere3d
-(workload 4: 3D STL sphere, octree IB, block fast path).
+IBX_BENCH_CASE=rae2822 (default: 2D flagship, BASELINE workload 2, plus the
+same case on the 1-device sharded runtime and the 3D sphere) or sphere3d
+(workload 4 alone). IBX_BENCH_WALL_H / IBX_BENCH_STEPS /
+IBX_BENCH_BLOCK_SIZE size the workload.
 """
 
 import json
 import os
+import subprocess
 import sys
 import time
 
 import numpy as np
 
+import jax
+
+
+def _march_rate(march, P, n_cells: int, steps: int):
+    """(cell-updates/s, march seconds, final state) of ``march(P, steps)``
+    after a 2-step compiling warm-up."""
+    P = jax.block_until_ready(march(P, 2))
+    t0 = time.perf_counter()
+    P = jax.block_until_ready(march(P, steps))
+    elapsed = time.perf_counter() - t0
+    return n_cells * steps / elapsed, elapsed, P
+
+
+def _check_finite(P, what: str):
+    if not bool(np.isfinite(np.asarray(P)).all()):
+        raise FloatingPointError(f"non-finite {what} state")
+
 
 def main():
-    import jax
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        print(f"bench: no GPU (platform {dev.platform!r})", file=sys.stderr)
+        sys.exit(2)
+    from ibx.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    device = {"platform": dev.platform, "kind": dev.device_kind,
+              "count": len(jax.devices()),
+              "nvidia_smi": smi.strip().replace("\n", " | ")}
 
     which = os.environ.get("IBX_BENCH_CASE", "rae2822")
     steps = int(os.environ.get("IBX_BENCH_STEPS", "300"))
+    block_size = int(os.environ.get("IBX_BENCH_BLOCK_SIZE", "16"))
 
-    t0 = time.time()
+    t0 = time.perf_counter()
     if which == "sphere3d":
         from ibx.cases import build_sphere3d
 
-        # 0.03 = the documented workload-4 resolution (BASELINE.md).
-        # block_size default SETTLED at 16 (VERDICT r4 item 3, decided on
-        # round-5 data): the round-3 "bs=8 = same per-cell rate" datum
-        # died with the Pallas cs kernels — their [C, bs, bs*bs] tiles
-        # half-fill the f32 (8, 128) vregs at bs=8 (measured 32.4M vs
-        # 90M+ at bs=16), so per-cell rate now favors bs=16 ~3x and
-        # time-to-solution at fixed wall_h is roughly a wash.  Both
-        # numbers are recorded in BASELINE.md; IBX_BENCH_BLOCK_SIZE=8
-        # selects the smaller-mesh config.
         wall_h = float(os.environ.get("IBX_BENCH_WALL_H", "0.03"))
-        block_size = int(os.environ.get("IBX_BENCH_BLOCK_SIZE", "16"))
         case = build_sphere3d(wall_h=wall_h, cfl=0.5, block_size=block_size)
     else:
         from ibx.cases import build_rae2822
 
         wall_h = float(os.environ.get("IBX_BENCH_WALL_H", "5e-4"))
-        block_size = int(os.environ.get("IBX_BENCH_BLOCK_SIZE", "16"))
         case = build_rae2822(wall_h=wall_h, feature_h=wall_h / 2, cfl=0.5,
                              block_size=block_size)
-    # IBX_BENCH_SHARDED=1: march through the 1-device-mesh shard_map
-    # runtime instead (neighbor-ppermute halo exchange included), so the
-    # driver-recorded JSON carries a measured sharded factor for the pod
-    # extrapolation (VERDICT round-3 item 6).
-    sharded = os.environ.get("IBX_BENCH_SHARDED", "0") != "0"
-    tag = ""
-    if sharded:
-        if which == "sphere3d":
-            from ibx.cases.sphere3d_block_sharded import (
-                build_sphere3d_block_sharded)
-            sbd, _, P0_sh, _ = build_sphere3d_block_sharded(
-                1, cfl=0.5, case=case)
-        else:
-            from ibx.cases.rae2822_block_sharded import (
-                build_rae2822_block_sharded)
-            sbd, _, P0_sh, _ = build_rae2822_block_sharded(
-                1, cfl=0.5, case=case)
-        march, P = sbd.march, P0_sh
-        tag = ", sharded=1-device-mesh"
-    else:
-        march, P = case.march, case.P0
-    build_s = time.time() - t0
+    build_s = time.perf_counter() - t0
     n = case.dom.ncells
+    cups, elapsed, P = _march_rate(case.march, case.P0, n, steps)
+    _check_finite(P, which)
+    tag = ""
 
-    # warmup / compile
-    P = march(P, 2)
-    jax.block_until_ready(P)
-    t0 = time.time()
-    P = march(P, steps)
-    jax.block_until_ready(P)
-    elapsed = time.time() - t0
-    if sharded:
-        P = sbd.collect(P)
+    if which == "rae2822":
+        # the same case on the 1-device-mesh shard_map runtime (halo
+        # exchange and interior/frontier overlap included)
+        from ibx.cases.rae2822_block_sharded import (
+            build_rae2822_block_sharded)
 
-    if not bool(np.isfinite(np.asarray(P)).all()):
-        print(json.dumps({"metric": "error", "value": 0,
-                          "unit": "non-finite state", "vs_baseline": 0}))
-        sys.exit(1)
+        sbd, _, P0_sh, _ = build_rae2822_block_sharded(
+            1, cfl=0.5, case=case, overlap=True)
+        sh_cups, sh_el, Ps = _march_rate(sbd.march, P0_sh, n, steps)
+        _check_finite(sbd.collect(Ps), "sharded 2D")
+        tag += (f", sharded_1dev={sh_cups / 1e6:.1f}M"
+                f" ({(sh_el / elapsed - 1) * 100:+.1f}%)")
 
-    cups = n * steps / elapsed
+        # the 3D sphere at its benchmark size (5.3M cells, bs=16)
+        from ibx.cases import build_sphere3d
 
-    # Driver-recorded sharded factor (VERDICT r3 item 6): on the default
-    # 2D flagship run, also march the SAME case through the 1-device-mesh
-    # shard_map runtime (neighbor-ppermute halo exchange + overlap split
-    # included) and record the measured overhead in the unit string, so
-    # the pod extrapolation rests on a number the driver captures.
-    if which == "rae2822" and not sharded:
-        try:
-            from ibx.cases.rae2822_block_sharded import (
-                build_rae2822_block_sharded)
-            sbd, _, P0_sh, _ = build_rae2822_block_sharded(
-                1, cfl=0.5, case=case, overlap=True)
-            Ps = sbd.march(P0_sh, 2)
-            jax.block_until_ready(Ps)
-            t0 = time.time()
-            Ps = sbd.march(Ps, steps)
-            jax.block_until_ready(Ps)
-            sh_el = time.time() - t0
-            tag += (f", sharded_1dev={n * steps / sh_el / 1e6:.1f}M"
-                    f" ({(sh_el / elapsed - 1) * 100:+.1f}%)")
-        except Exception as e:               # pragma: no cover
-            tag += f", sharded_1dev=err:{type(e).__name__}"
+        t0 = time.perf_counter()
+        c3 = build_sphere3d(wall_h=0.03, cfl=0.5, block_size=16)
+        b3 = time.perf_counter() - t0
+        cups3, _, P3 = _march_rate(c3.march, c3.P0, c3.dom.ncells, steps)
+        _check_finite(P3, "3D")
+        tag += (f", sphere3d={cups3 / 1e6:.1f}M"
+                f" (cells={c3.dom.ncells}, bs=16, build={b3:.0f}s)")
 
-        # Driver-recorded 3D number (VERDICT r4 item 4): the default
-        # bench invocation also builds + marches the 3D sphere workload
-        # (5.3M cells at bs=16 — the production 3D config, ~4 min host
-        # build) so BENCH_r05 carries the 3D throughput, not just
-        # BASELINE.md prose.  IBX_BENCH_3D=0 skips it.
-        if os.environ.get("IBX_BENCH_3D", "1") != "0":
-            try:
-                from ibx.cases import build_sphere3d
-
-                t0 = time.time()
-                c3 = build_sphere3d(wall_h=0.03, cfl=0.5, block_size=16)
-                b3 = time.time() - t0
-                P3 = c3.march(c3.P0, 2)
-                jax.block_until_ready(P3)
-                t0 = time.time()
-                P3 = c3.march(P3, steps)
-                jax.block_until_ready(P3)
-                el3 = time.time() - t0
-                if not bool(np.isfinite(np.asarray(P3)).all()):
-                    raise FloatingPointError("non-finite 3D state")
-                tag += (f", sphere3d={c3.dom.ncells * steps / el3 / 1e6:.1f}M"
-                        f" (cells={c3.dom.ncells}, bs=16, build={b3:.0f}s)")
-            except Exception as e:           # pragma: no cover
-                tag += f", sphere3d=err:{type(e).__name__}"
-
-    print(
-        json.dumps(
-            {
-                "metric": f"{which}_euler_cell_updates_per_sec_per_chip",
-                "value": cups,
-                "unit": (
-                    f"cell-updates/s/chip (cells={n}, steps={steps}, "
-                    f"march={elapsed:.3f}s, build={build_s:.1f}s{tag})"
-                ),
-                "vs_baseline": cups / 125e6,
-            }
-        )
-    )
+    print(json.dumps({
+        "metric": f"{which}_euler_cell_updates_per_sec",
+        "value": cups,
+        "unit": (f"cell-updates/s (cells={n}, steps={steps}, "
+                 f"march={elapsed:.3f}s, build={build_s:.1f}s{tag})"),
+        "device": device,
+    }))
 
 
 if __name__ == "__main__":

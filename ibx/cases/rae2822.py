@@ -175,8 +175,8 @@ def build_rae2822(
 
     if n_partitions == 1:
         # fused BC path: both families through ONE image-interpolation gather
-        # and ONE sorted ghost scatter (gathers/scatters are per-row-costly
-        # on TPU). Families' ghost sets are disjoint (outer box vs wall).
+        # and ONE sorted ghost scatter. Families' ghost sets are disjoint
+        # (outer box vs wall).
         fb = dom.fused_boundary(["farfield", "wall"])
         bc_fns = {
             "farfield": lambda Pi, nrm: apply_flow_bc(farfield_bc, Pi, nrm),
@@ -201,10 +201,9 @@ def build_rae2822(
     if use_blocks and n_partitions == 1:
         # dense block-structured fast path (numerics identical to the
         # generic gather path; see tests/test_block_ops.py). The march
-        # state stays a [B, bs, bs, C] block grid end to end — flat<->block
-        # relayouts cost ~1 ms/step of HBM transposes at 881k cells — and
-        # ghost BCs go through the run-window BlockedBC (narrow-row ghost
-        # scatters cost ~43 ns/row on TPU).
+        # state stays a [B, bs, bs, C] block grid end to end (no flat<->block
+        # relayouts inside the loop) and ghost BCs go through the run-window
+        # BlockedBC.
         from ..ops.block_ops import (
             euler_step_grid, rk2_step_grid, to_blocks, to_flat,
         )

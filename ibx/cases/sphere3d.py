@@ -63,7 +63,7 @@ class Sphere3dCase:
     P0: jnp.ndarray
     apply_bcs: Callable
     grid: dict = None        # block-path internals (bt, bbc, bc_fns,
-    #   apply_bcs_cs, active_cs when the cs march is active) for labs
+    #   active3, apply_bcs3) for building custom steppers
 
 
 def build_sphere3d(
@@ -128,55 +128,20 @@ def build_sphere3d(
         def apply_bcs3(P3):
             return bbc(P3, bc_fns, guard=physicality_guard)
 
-        import os
+        def _grid_step(P3):
+            return rk2_step_grid(bt, fluid, P3, apply_bcs3, cfl=cfl,
+                                 high_order=high_order, active3=active3)
 
-        from ..ops.pallas_rhs import pallas_eligible
+        def _one_step(P):
+            P3, res = _grid_step(to_blocks(bt, P))
+            return to_flat(bt, P3), res
 
-        cs_env = os.environ.get("IBX_CS", "")
-        use_cs = (pallas_eligible(bt) and cs_env != "0"
-                  and (cs_env == "1" or jax.default_backend() == "tpu"))
-        if use_cs:
-            # channel-split end-to-end march: state stays in the Pallas
-            # kernels' [B, C, bs, bs*bs] layout across RHS + BC (kills
-            # the per-step cell-major round trips — round-4 trace)
-            from ..ops.pallas_rhs import cs_merge, cs_split, rk2_step_cs
-
-            active_cs = cs_split(bt, active3[..., None])
-
-            def apply_bcs_cs(Pcs):
-                return bbc.cs(Pcs, bc_fns, guard=physicality_guard)
-
-            def _cs_step(Pcs):
-                return rk2_step_cs(bt, fluid, Pcs, apply_bcs_cs, cfl=cfl,
-                                   high_order=high_order,
-                                   active_cs=active_cs)
-
-            def _one_step(P):
-                Pcs, res = _cs_step(cs_split(bt, to_blocks(bt, P)))
-                return to_flat(bt, cs_merge(bt, Pcs)), res
-
-            @jax.jit
-            def march(P, n_steps):
-                def body(_, Pcs):
-                    return _cs_step(Pcs)[0]
-                Pcs = jax.lax.fori_loop(0, n_steps, body,
-                                        cs_split(bt, to_blocks(bt, P)))
-                return to_flat(bt, cs_merge(bt, Pcs))
-        else:
-            def _grid_step(P3):
-                return rk2_step_grid(bt, fluid, P3, apply_bcs3, cfl=cfl,
-                                     high_order=high_order, active3=active3)
-
-            def _one_step(P):
-                P3, res = _grid_step(to_blocks(bt, P))
-                return to_flat(bt, P3), res
-
-            @jax.jit
-            def march(P, n_steps):
-                def body(_, P3):
-                    return _grid_step(P3)[0]
-                P3 = jax.lax.fori_loop(0, n_steps, body, to_blocks(bt, P))
-                return to_flat(bt, P3)
+        @jax.jit
+        def march(P, n_steps):
+            def body(_, P3):
+                return _grid_step(P3)[0]
+            P3 = jax.lax.fori_loop(0, n_steps, body, to_blocks(bt, P))
+            return to_flat(bt, P3)
     else:
         from ..solve.euler import rk2_step
 
@@ -204,8 +169,6 @@ def build_sphere3d(
     if use_blocks:
         grid = dict(bt=bt, bbc=bbc, bc_fns=bc_fns, active3=active3,
                     apply_bcs3=apply_bcs3)
-        if use_cs:
-            grid.update(apply_bcs_cs=apply_bcs_cs, active_cs=active_cs)
 
     return Sphere3dCase(
         dom=dom, fluid=fluid, P_inf=P_inf, mach=mach,

@@ -1,20 +1,14 @@
-"""Sharded BLOCK fast-path 3D STL-sphere Euler step (BASELINE workload 4/5
-multi-device leg).
+"""Sharded BLOCK fast-path 3D STL-sphere Euler step (multi-device leg of
+BASELINE workload 4).
 
 Same numerics as the single-device 3D fast path (`ibx.cases.sphere3d`),
-executed as one shard_map over a 1-D device mesh — the 3D counterpart of
-`ibx.cases.rae2822_block_sharded`.  Round 5: the sharded march now runs
-the PRODUCTION path (VERDICT r4 item 1) — the channel-split Pallas RHS
-(`ops.pallas_rhs`) plus the per-device `BlockedBC` fast paths — when the
-local tables admit it; the cell-major XLA path (with the same per-device
-BlockedBC) remains the fallback.  Parity enforced by
-tests/test_block_sharding.py::test_sharded_sphere3d_matches_single_device
-and ::test_sharded_sphere3d_cs_matches_single_device.
+executed as one shard_map over a 1-D device mesh with the per-device
+`BlockedBC` fast paths — the 3D counterpart of
+`ibx.cases.rae2822_block_sharded`. Parity enforced by
+tests/test_block_sharding.py::test_sharded_sphere3d_matches_single_device.
 """
 
 from __future__ import annotations
-
-import os
 
 import numpy as np
 
@@ -39,20 +33,14 @@ def build_sphere3d_block_sharded(
     wall_h: float = 0.1,
     cfl: float = 0.7,
     high_order: bool = True,
-    use_cs: bool = None,
     case=None,
     **kwargs,
 ):
     """Returns (sharded_block_domain, jitted step, sharded P0, case).
 
-    ``case`` reuses a prebuilt single-chip case (the sharded step
-    re-derives its BCs from the case's domain) — used by the
-    IBX_BENCH_SHARDED bench arm to avoid rebuilding the topology twice.
-
-    ``use_cs``: None (default) auto-selects the channel-split Pallas
-    march when the per-device tables admit it AND the backend is TPU (or
-    IBX_CS=1 forces interpret-mode kernels, e.g. for CPU parity tests —
-    mirroring the single-chip gate in `ibx.cases.sphere3d`).
+    ``case`` reuses a prebuilt single-device case (the sharded step
+    re-derives its BCs from the case's domain), so the topology is not
+    built twice.
     """
     if case is None:
         case = build_sphere3d(
@@ -77,83 +65,41 @@ def build_sphere3d_block_sharded(
                            case.dom.centers)
     active = (~inside).astype(np.float32)[:, None]
 
-    if use_cs is None:
-        cs_env = os.environ.get("IBX_CS", "")
-        use_cs = (sbd.cs_eligible() and cs_env != "0"
-                  and (cs_env == "1" or jax.default_backend() == "tpu"))
+    active_sh = sbd.distribute(active, pad_mode="zero")[..., 0]
 
-    if use_cs:
-        from ..ops.pallas_rhs import euler_rhs_cs, run_update
+    def sharded_step(ctx, P_own, active_own):
+        def bcs(own):
+            # per-device BlockedBC (dense-plane + dedup fast paths)
+            return ctx.own(ctx.bbc(ctx.exchange(own), bc_fns,
+                                   guard=physicality_guard))
 
-        active_cs = sbd.distribute_cs(active, pad_mode="zero")
+        loc = ctx.exchange(P_own)
+        R0, dt3, _ = euler_rhs_grid(ctx.bt, fluid, loc, with_dt=True,
+                                    cfl=cfl, high_order=high_order)
+        R0 = ctx.own(R0)
+        dt3 = ctx.own(dt3)
+        dt = jnp.where(active_own > 0, dt3, 0.0)[..., None]
+        Q0 = primitive2state(fluid, P_own)
+        P1 = bcs(state2primitive_guarded(fluid, Q0 + dt * R0))
+        R1 = ctx.own(euler_rhs_grid(ctx.bt, fluid, ctx.exchange(P1),
+                                    high_order=high_order))
+        P2 = bcs(state2primitive_guarded(fluid,
+                                         Q0 + dt * (R0 + R1) / 2))
+        resnorm = ctx.pmax(jnp.abs(R0[..., 0] * active_own).max())
+        return P2, resnorm
 
-        def sharded_step(ctx, Pc_own, act_own):
-            def bcs(own):
-                return ctx.own(ctx.bbc_cs(ctx.exchange(own), bc_fns,
-                                          guard=physicality_guard))
-
-            def rhs(own, with_dt):
-                loc = ctx.exchange(own)
-                out = euler_rhs_cs(ctx.bt, fluid, loc,
-                                   high_order=high_order, with_dt=with_dt)
-                if with_dt:
-                    return ctx.own(out[0]), ctx.own(out[1])
-                return ctx.own(out)
-
-            R0, dtb = rhs(Pc_own, True)
-            P1 = bcs(run_update(None, fluid, Pc_own, R0, None, dtb,
-                                act_own, cfl))
-            R1 = rhs(P1, False)
-            P2 = bcs(run_update(None, fluid, Pc_own, R0, R1, dtb,
-                                act_own, cfl))
-            resnorm = ctx.pmax(jnp.abs(R0[:, 0] * act_own[:, 0]).max())
-            return P2, resnorm
-
-        raw = sbd.shard_fn(sharded_step)
-        extra = (active_cs,)
-        P0_sh = sbd.distribute_cs(np.asarray(case.P0))
-        # cs layout is the state layout of this runtime: rebind the
-        # distribute/collect surface so existing callers (bench, dryrun,
-        # parity tests) roundtrip flat <-> cs transparently
-        sbd.distribute = sbd.distribute_cs
-        sbd.collect = sbd.collect_cs
-    else:
-        active_sh = sbd.distribute(active, pad_mode="zero")[..., 0]
-
-        def sharded_step(ctx, P_own, active_own):
-            def bcs(own):
-                # per-device BlockedBC (dense-plane + dedup fast paths)
-                return ctx.own(ctx.bbc(ctx.exchange(own), bc_fns,
-                                       guard=physicality_guard))
-
-            loc = ctx.exchange(P_own)
-            R0, dt3, _ = euler_rhs_grid(ctx.bt, fluid, loc, with_dt=True,
-                                        cfl=cfl, high_order=high_order)
-            R0 = ctx.own(R0)
-            dt3 = ctx.own(dt3)
-            dt = jnp.where(active_own > 0, dt3, 0.0)[..., None]
-            Q0 = primitive2state(fluid, P_own)
-            P1 = bcs(state2primitive_guarded(fluid, Q0 + dt * R0))
-            R1 = ctx.own(euler_rhs_grid(ctx.bt, fluid, ctx.exchange(P1),
-                                        high_order=high_order))
-            P2 = bcs(state2primitive_guarded(fluid,
-                                             Q0 + dt * (R0 + R1) / 2))
-            resnorm = ctx.pmax(jnp.abs(R0[..., 0] * active_own).max())
-            return P2, resnorm
-
-        raw = sbd.shard_fn(sharded_step)
-        extra = (active_sh,)
-        P0_sh = sbd.distribute(np.asarray(case.P0))
+    raw = sbd.shard_fn(sharded_step)
+    P0_sh = sbd.distribute(np.asarray(case.P0))
 
     @jax.jit
     def step(P_sh):
-        P2, res = raw(P_sh, *extra)
+        P2, res = raw(P_sh, active_sh)
         return P2, res[0]
 
     @jax.jit
     def march(P_sh, n_steps):
         def body(_, P_sh):
-            return raw(P_sh, *extra)[0]
+            return raw(P_sh, active_sh)[0]
         return jax.lax.fori_loop(0, n_steps, body, P_sh)
 
     sbd.march = march

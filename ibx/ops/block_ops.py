@@ -1,4 +1,4 @@
-"""Dense block-structured operators: the TPU fast path (device side).
+"""Dense block-structured operators: the block fast path (device side).
 
 State lives as [B, bs, ..., bs, C] block grids (a free reshape of the global
 cell ordering, reference ``src/mesher.jl:1064-1088``). Face work decomposes
@@ -16,7 +16,6 @@ the parity tests enforce it.
 
 from __future__ import annotations
 
-import os
 from typing import Callable, Tuple
 
 import numpy as np
@@ -28,19 +27,6 @@ from ..physics.flux import inviscid_fluxes_hll, viscous_fluxes
 from ..physics.fluid import Fluid, primitive2state, speed_of_sound, state2primitive
 from ..topology.blocks import BlockTables
 from .operators import minmod
-
-
-# face-array formulation switch (see `face_accumulate`). Default concat:
-# the padded form was A/B'd on a synthetic 5.45M-cell uniform forest
-# (scripts/rhs_lab.py, TPU) and LOST — rk2 60.3 vs 52.4 ms/step (the
-# padded operands re-materialize all 11 pass-B channel parts at
-# (bs+2)/bs size, outweighing the saved slice copies).
-_PADDED_FACES = os.environ.get("IBX_PADDED_FACES", "0") != "0"
-
-# fused Pallas RHS kernels (ibx.ops.pallas_rhs): "auto" uses them for
-# every eligible 3D Euler configuration, "0" disables, "1" asserts
-# eligibility (for tests).
-_PALLAS_RHS = os.environ.get("IBX_PALLAS_RHS", "auto")
 
 
 def _axis(bt: BlockTables, d: int) -> int:
@@ -72,7 +58,7 @@ def pad_dim(bt: BlockTables, u3, d: int):
         return v.reshape((bt.n_blocks,) + (1,) * (u3.ndim - 1))
 
     def btake(slab, idx):
-        # gather whole-block rows via a 2D view (TPU-efficient row gather)
+        # gather whole-block rows via a 2D row view
         flat = slab.reshape(bt.n_blocks, -1)
         return jnp.take(flat, idx, axis=0).reshape(slab.shape)
 
@@ -209,27 +195,14 @@ def _cat_fn(face_fn: Callable, widths):
 
 
 def interface_corrections(bt: BlockTables, d: int, W3, face_fn: Callable,
-                          n_out: int, signed_mask, edge_fetch=None):
+                          n_out: int, signed_mask):
     """Structured 2:1 interface contributions as a cell-grid array.
-
-    (A ``compact`` variant that returned raw ``(blocks, vals)`` pairs for
-    scatter-add application was A/B'd and deleted in round 4 — the
-    un-fusable scatters re-materialized the full operand per call and
-    measured 19.6 ms/step SLOWER than the placed-grid streamed adds on
-    the 5.3M-cell sphere bench; see `pallas_rhs._cols_add_cs`.)
 
     ``face_fn(W_owner, W_neighbor, h_owner, h_neighbor) -> [..., n_out]``
     computes per-face quantities with the owner on the minus side. Columns
     flagged in ``signed_mask`` accumulate green-gauss style (+ on a cell's
     plus side, - on its minus side); others accumulate unsigned. The result
     is already divided by the accumulating cell's spacing.
-
-    ``edge_fetch(s, blocks) -> [V, lat.., Ktot]`` (optional) supplies the
-    channel-concatenated side-``s`` edge planes of the given block rows
-    directly — used by the Pallas RHS glue, whose operands live
-    channel-split: gathering the handful of interface blocks and slicing
-    their planes beats materializing cell-major grids of every part.
-    Default: extract from the ``W3`` grids (identical values).
     """
     parts = _parts(W3)
     if isinstance(W3, (tuple, list)):
@@ -246,14 +219,11 @@ def interface_corrections(bt: BlockTables, d: int, W3, face_fn: Callable,
         return es[0] if len(es) == 1 else jnp.concatenate(es, axis=-1)
 
     def fetch(side, blocks):
-        if edge_fetch is not None:
-            return edge_fetch(side, blocks)
         return _edge_rows(bt, edge_cat(side), blocks)
 
     def place(vals, inv):
         # inverse-permutation gather: each block appears at most once per
         # table, so "scatter" = row-gather with a dummy zero row appended
-        # (scatters are per-row-slow on TPU; row gathers are fast)
         trail = vals.shape[1:]
         flat = vals.reshape(vals.shape[0], -1)
         padded = jnp.concatenate(
@@ -364,18 +334,9 @@ def face_accumulate(bt: BlockTables, d: int, W3, face_fn: Callable,
     2:1 interfaces and the generic sparse leftover — identical coverage to
     the Euler passes.
 
-    Each flux is evaluated ONCE per face. Two formulations, bit-identical
-    per face (same inputs, same fn, same divergence expression):
-
-      * concat (default): interior faces evaluated on slice windows, edge
-        faces separately, one `concatenate([lo, int, hi])` face array —
-        the round-3 formulation.
-      * padded (IBX_PADDED_FACES=1): each operand part is padded once with
-        its halo columns ([.., bs+2, ..], `pad_dim`), the face fn is
-        evaluated on the two unit-shifted (bs+1)-windows, invalid edge
-        faces are masked. A/B'd on a synthetic 5.45M-cell forest
-        (scripts/rhs_lab.py): LOSES 15% (60.3 vs 52.4 ms/step rk2) — kept
-        only as the measured reference point.
+    Each flux is evaluated ONCE per face: interior faces on slice windows,
+    block-edge faces separately, one `concatenate([lo, int, hi])` face
+    array.
     """
     parts = _parts(W3)
     tup = isinstance(W3, (tuple, list))
@@ -386,44 +347,6 @@ def face_accumulate(bt: BlockTables, d: int, W3, face_fn: Callable,
     bs = bt.block_size
     h = _h_bcast(bt, d, 1)
 
-    if _PADDED_FACES:
-        padded = tuple(pad_dim(bt, p, d) for p in parts)
-        lo = tuple(jax.lax.slice_in_dim(p, 0, bs + 1, axis=ax)
-                   for p in padded)
-        hi = tuple(jax.lax.slice_in_dim(p, 1, bs + 2, axis=ax)
-                   for p in padded)
-        Fall = fn(lo, hi, h, h)
-        n_trail = Fall.ndim - 1 - bt.nd
-        mshape = [bt.n_blocks] + [1] * (bt.nd + n_trail)
-        mask_l = bt.edge_valid[d][0].reshape(mshape)
-        mask_r = bt.edge_valid[d][1].reshape(mshape)
-        ishape = [1] * Fall.ndim
-        ishape[ax] = bs + 1
-        iota = jax.lax.broadcasted_iota(jnp.int32, tuple(ishape), ax)
-        Fall = Fall * jnp.where(
-            iota == 0, mask_l, jnp.where(iota == bs, mask_r, 1.0))
-        Fm = jax.lax.slice_in_dim(Fall, 0, bs, axis=ax)
-        Fp = jax.lax.slice_in_dim(Fall, 1, bs + 1, axis=ax)
-        sgn = jnp.where(jnp.asarray(signed_mask, Fall.dtype) > 0, -1.0, 1.0)
-        out = (Fp + sgn * Fm) / h
-
-        cols = interface_corrections(bt, d, W3, face_fn, n_out, signed_mask)
-        if cols is not None:
-            cshape = [1] * out.ndim
-            cshape[ax] = bs
-            ciota = jax.lax.broadcasted_iota(jnp.int32, tuple(cshape), ax)
-            if cols[0] is not None:
-                out = out + jnp.where(
-                    ciota == 0, jnp.expand_dims(cols[0], ax), 0.0)
-            if cols[1] is not None:
-                out = out + jnp.where(
-                    ciota == bs - 1, jnp.expand_dims(cols[1], ax), 0.0)
-        if bt.sp_owner[d].shape[0]:
-            gs = _generic_sparse(bt, d, W3 if tup else
-                                 W3.reshape(bt.n_cells, W3.shape[-1]),
-                                 face_fn, n_out, signed_mask)
-            out = out + gs.reshape(out.shape)
-        return out
     # interior faces (i-1, i), i = 1..bs-1: slice windows, no wrap
     lo_sl = tuple(jax.lax.slice_in_dim(p, 0, bs - 1, axis=ax)
                   for p in parts)
@@ -509,8 +432,7 @@ def euler_rhs_grid(
 ):
     """Fused Euler dQ/dt on the block-grid state [B, bs, ..., bs, C];
     numerics identical to `ibx.solve.euler.euler_rhs` (MUSCL + JST blending
-    + HLL). Grid-native: no flat<->block relayout copies inside the march
-    (those cost ~1 ms/step in HBM transposes at 881k cells).
+    + HLL). Grid-native: no flat<->block relayout copies inside the march.
 
     ``frozen``: optional (du3_list, nu3) from a previous evaluation — reuses
     the gradient/sensor pass (frozen-limiter RK stages).
@@ -541,21 +463,6 @@ def euler_rhs_grid(
     Returns R3 [B, bs.., C]; with ``with_dt`` also dt3 [B, bs..] and the
     frozen (du3_list, nu3) grids.
     """
-    if _PALLAS_RHS != "0":
-        from .pallas_rhs import euler_rhs_grid_pallas, pallas_eligible
-        ok = pallas_eligible(bt, viscous=viscous, fix3=fix3, cut3=cut3,
-                             frozen=frozen, mu_t3=mu_t3)
-        if _PALLAS_RHS == "1" and not ok:
-            raise ValueError("IBX_PALLAS_RHS=1 but configuration is not "
-                             "Pallas-eligible")
-        # "auto" engages on TPU only: on CPU the kernels run in interpret
-        # mode (fine for the direct parity tests, far too slow to sneak
-        # into the virtual-mesh sharding tests / driver dryrun)
-        if ok and (_PALLAS_RHS == "1"
-                   or jax.default_backend() == "tpu"):
-            return euler_rhs_grid_pallas(
-                bt, fluid, P3, high_order=high_order, with_dt=with_dt,
-                cfl=cfl)
     nd, bs = bt.nd, bt.block_size
     ncomp = P3.shape[-1]
     grid_shape = P3.shape[:-1]

@@ -33,7 +33,7 @@ class Stencil:
     """Fixed-width weighted gather-reduce table.
 
     Mirrors the semantics of ``Accumulator`` (reference
-    ``src/accumulator.jl:39-65``) with a TPU-native padded layout.
+    ``src/accumulator.jl:39-65``) with a fixed-width padded layout.
 
     Attributes:
       idx: int32[M, K] gather indices into the input's leading axis. Padded

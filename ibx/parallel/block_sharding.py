@@ -41,7 +41,6 @@ from jax.sharding import Mesh, PartitionSpec
 
 from ..topology.blocks import BlockTables, build_block_tables_raw
 from ..topology.domain import Domain
-from .sharding import _shard_map_compat, make_device_mesh
 
 
 def _pad_rows(a: np.ndarray, n: int, fill=0):
@@ -68,7 +67,7 @@ class ShardedBlockDomain:
         families (the round-4 BC fast paths — dense-plane templates,
         stencil dedup, phase-view placement, union write-back — under the
         sharded march; VERDICT r4 item 1).  The kernel then exposes
-        ``ctx.bbc`` / ``ctx.bbc_cs``; the per-ghost gather ``ctx.bc``
+        ``ctx.bbc``; the per-ghost gather ``ctx.bc``
         remains for callbacks BlockedBC cannot host (wall-model BCs)."""
         assert dom.n_partitions == 1, "build from a single-partition Domain"
         msh = dom.mesh
@@ -544,46 +543,6 @@ class ShardedBlockDomain:
             n_cells=n_blocks * self.npb,
         )
 
-    # -- channel-split (Pallas) layout helpers -----------------------------
-
-    def cs_eligible(self) -> bool:
-        """The per-device tables admit the fused Pallas cs march
-        (`ops.pallas_rhs.pallas_eligible` conditions on the local
-        tables; sp shapes are common across devices by stacking)."""
-        if self.nd != 3 or self.bs not in (8, 16):
-            return False
-        sp = self._stacked_bt["sp_owner"]
-        return all(int(sp[d][0].shape[-1]) == 0 for d in range(self.nd))
-
-    def distribute_cs(self, a, pad_mode: str = "edge"):
-        """Global flat [N, C] -> sharded own cs grids
-        [P, chunk, C, bs, bs**(nd-1) * bs]."""
-        a = np.asarray(a)
-        C = a.shape[-1]
-        grids = a.reshape((self.B,) + (self.bs,) * self.nd + (C,))
-        padn = self.P * self.chunk - self.B
-        if padn:
-            fill = (np.repeat(grids[:1], padn, axis=0)
-                    if pad_mode == "edge"
-                    else np.zeros((padn,) + grids.shape[1:], grids.dtype))
-            grids = np.concatenate([grids, fill], axis=0)
-        perm = (0, self.nd + 1) + tuple(range(1, self.nd + 1))
-        cs = grids.transpose(perm).reshape(
-            self.P * self.chunk, C, self.bs, self.npb // self.bs)
-        cs = cs.reshape((self.P, self.chunk) + cs.shape[1:])
-        sharding = jax.sharding.NamedSharding(self.mesh, PartitionSpec("p"))
-        return jax.device_put(jnp.asarray(cs), sharding)
-
-    def collect_cs(self, a):
-        """Sharded cs grids [P, chunk, C, bs, ...] -> global flat numpy
-        [N, C]."""
-        a = np.asarray(a)
-        C = a.shape[2]
-        grids = a.reshape((self.P * self.chunk, C) + (self.bs,) * self.nd)
-        perm = (0,) + tuple(range(2, self.nd + 2)) + (1,)
-        flat = grids.transpose(perm).reshape(-1, C)
-        return flat[: self.B * self.npb]
-
     # -- state layout ------------------------------------------------------
 
     def distribute(self, a, pad_mode: str = "edge"):
@@ -704,8 +663,6 @@ class ShardedBlockDomain:
                 )
                 ctx.bbc = (lambda local, fns, guard=None:
                            bbc(local, fns, guard=guard))
-                ctx.bbc_cs = (lambda Pc, fns, guard=None:
-                              bbc.cs(Pc, fns, guard=guard))
             ctx.own = lambda loc: jax.lax.slice_in_dim(
                 loc, 0, sbd.chunk, axis=0)
             ctx.pmin = lambda x: jax.lax.pmin(x, "p")
@@ -776,8 +733,8 @@ class ShardedBlockDomain:
             if n not in cache:
                 specs_in = (self._spec, rep_spec) + tuple(
                     PartitionSpec("p") for _ in range(n))
-                cache[n] = _shard_map_compat(
-                    kernel, mesh=self.mesh,
+                cache[n] = jax.shard_map(
+                    kernel, mesh=self.mesh, check_vma=False,
                     in_specs=specs_in, out_specs=PartitionSpec("p"),
                 )
             return cache[n](self.tables, replicated, *shards)

@@ -34,11 +34,6 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec
 
-try:  # jax >= 0.6 exposes shard_map at top level
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map  # type: ignore
-
 from ..ops.operators import Partition
 from ..ops.stencil import Stencil
 from ..topology.domain import Boundary, Domain
@@ -367,26 +362,14 @@ class ShardedDomain:
                 specs_in = (self._spec,) + tuple(
                     PartitionSpec("p") for _ in range(n)
                 )
-                cache[n] = _shard_map_compat(
-                    kernel, mesh=self.mesh,
+                cache[n] = jax.shard_map(
+                    kernel, mesh=self.mesh, check_vma=False,
                     in_specs=specs_in,
                     out_specs=PartitionSpec("p"),
                 )
             return cache[n](self.tables, *u_shards)
 
         return call
-
-
-def _shard_map_compat(kernel, **kwargs):
-    """shard_map across jax versions (check flag renamed over releases)."""
-    for flag in ("check_vma", "check_rep", None):
-        try:
-            if flag is None:
-                return shard_map(kernel, **kwargs)
-            return shard_map(kernel, **kwargs, **{flag: False})
-        except TypeError:
-            continue
-    raise RuntimeError("no compatible shard_map signature")
 
 
 def make_device_mesh(n_devices: Optional[int] = None) -> Mesh:

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
+import jax
 import jax.numpy as jnp
 
 from ..utils import pytree_dataclass
@@ -62,7 +63,8 @@ def apply_flow_bc(
     if bc.normal_flow:
         un = jnp.broadcast_to(bc.u_inf[0], (P.shape[0],))
     else:
-        un = normals @ bc.u_inf
+        un = jnp.matmul(normals, bc.u_inf,
+                        precision=jax.lax.Precision.HIGHEST)
 
     p = P[:, 0]
     T = P[:, 1]

@@ -147,8 +147,7 @@ def physicality_guard(P, p_floor=1.0, u_max=3000.0, p_ceil=1e9, T_ceil=2e4):
     # interior cells) — sqrt'(0) is infinite otherwise
     vmag = jnp.sqrt((u ** 2).sum(axis=-1, keepdims=True) + 1e-12)
     scale = jnp.minimum(1.0, u_max / vmag)
-    # built by concatenation: channel-indexed .at[].set lowers to a slow
-    # per-row dynamic-update-slice on TPU
+    # built by concatenation, not channel-indexed .at[].set
     return jnp.concatenate(
         [jnp.clip(P[..., 0:1], p_floor, p_ceil),
          jnp.clip(P[..., 1:2], None, T_ceil), u * scale], axis=-1

@@ -29,8 +29,7 @@ def _flux_one_side(fluid: Fluid, P, dim):
     p = P[..., 0:1]
     u_n = _normal_velocity(P, dim)
     un = u_n[..., None]
-    # channel-indexed .at[].add lowers to slow per-row updates on TPU;
-    # build the flux by concatenation instead
+    # build the flux by concatenation, not channel-indexed .at[].add
     mom = Q[..., 2:] * un
     if isinstance(dim, int):
         mom = jnp.concatenate(

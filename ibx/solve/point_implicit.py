@@ -4,7 +4,7 @@ Counterpart of reference ``src/point_implicit.jl``: Hutchinson +/-1-probe
 estimation of the block-diagonal Jacobian, a linearization with
 Jacobian-vector products, a block-diagonal pseudo-inverse preconditioner, and
 a two-direction minimal-residual descent with optional coarse-to-fine
-multigrid cycling. TPU-first changes: JVPs are exact (``jax.jvp``) instead of
+multigrid cycling. Departures: JVPs are exact (``jax.jvp``) instead of
 finite differences, and the solve loop is a ``lax.while_loop`` so the whole
 implicit step jits.
 """
@@ -87,7 +87,8 @@ class PIPreconditioner(NamedTuple):
         if D.ndim == 1:
             return v * D
         # out[n, j] = sum_i v[n, i] * D[n, j, i]
-        return jnp.einsum("ni,nji->nj", v, D)
+        return jnp.einsum("ni,nji->nj", v, D,
+                          precision=jax.lax.Precision.HIGHEST)
 
 
 def linearize(
@@ -114,8 +115,7 @@ def _block_inv(D, rel_reg: float = 1e-5):
     """Regularized inverse of small [N, k, k] blocks by vectorized
     Gauss-Jordan elimination.
 
-    ``jnp.linalg.pinv`` lowers to a batched SVD whose QR stage blows the
-    TPU scoped-VMEM limit at ~100k blocks; the Newton blocks here are
+    ``jnp.linalg.pinv`` lowers to a batched SVD; the Newton blocks here are
     diagonally dominant (I/dt - diag(J)), so unpivoted elimination with a
     diagonal Tikhonov term is stable and compiles to pure vector ops.
     """

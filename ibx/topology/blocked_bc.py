@@ -1,11 +1,10 @@
-"""Block-structured ghost-cell BC imposition (the TPU fast path).
+"""Block-structured ghost-cell BC imposition (the block fast path).
 
 The eta-blended ghost update (reference ``src/ImmersedBoundary.jl:1159-1247``)
-costs two row-indexed memory ops per application on TPU:
+costs two row-indexed memory ops per application:
 
-  * image-point interpolation: a [G, K]-stencil gather (~5 ns/row, K*G rows);
-  * ghost write-back: a [G]-row scatter (~43 ns/row — XLA TPU scatters
-    serialize; measured 1.1 GiB/s at G = 24k).
+  * image-point interpolation: a [G, K]-stencil gather (K*G narrow rows);
+  * ghost write-back: a [G]-row scatter.
 
 Both are restructured here around the block layout ([B, bs, .., bs, C]
 grids, `ibx.ops.block_ops`):
@@ -54,9 +53,7 @@ def _take_mode():
 def _concat_layer_update(blk, ax, bs, layers, side, new_plane):
     """Rebuild ``blk`` with the boundary layers' planes replaced, as ONE
     `concatenate` along ``ax`` instead of per-layer dynamic-update-slices
-    (each DUS on a [V, C, bs..] block stack measured ~40-190 us on TPU —
-    lane-dim updates are sublane-hostile; CLAUDE.md rule: build by
-    concatenate).  ``new_plane(li, p)`` returns the masked replacement
+    (build by concatenate).  ``new_plane(li, p)`` returns the masked replacement
     plane for layer index ``li`` at axis position ``p`` (without the axis
     dim); untouched index ranges are kept as contiguous slices."""
     pos = {(bs - 1 - l) if side else l: li for li, l in enumerate(layers)}
@@ -99,10 +96,6 @@ class BlockedBC:
     patch_w: jnp.ndarray       # f32[Up, prod(win)*bs] scattered weights
     fb_cell: jnp.ndarray       # int32[Uf*K] flat cell ids per stencil point
     fb_w: jnp.ndarray          # f32[Uf, K]
-    # compact stencil band (cs mode): the unique blocks holding ANY fb
-    # stencil cell, and fb_cell remapped into that band's cell space
-    band_blocks: jnp.ndarray   # int32[Bband]
-    fb_cell_band: jnp.ndarray  # int32[Uf*K]
     g2u: jnp.ndarray           # int32[G] ghost -> unique stencil row
     # BC data (canonical ghost order: sorted by global cell id)
     normals: jnp.ndarray       # f32[G, nd]
@@ -120,14 +113,11 @@ class BlockedBC:
     ovf_src: jnp.ndarray       # int32[O] g rows of overflow ghosts
     ovf_dst: jnp.ndarray       # int32[O] (e * 16 + slot) of those ghosts
     # union write-back (one full-view gather + one scatter per BC
-    # application; all per-group reads/writes run on the gathered buffer
-    # — per-group full-view gathers/scatters each dragged a state
-    # relayout copy on TPU, ~0.2 ms per scatter at bench scale)
-    wb_blocks: jnp.ndarray     # int32[Bu] union of gblk/dense/band blocks
+    # application; all per-group reads/writes run on the gathered buffer)
+    wb_blocks: jnp.ndarray     # int32[Bu] union of gblk/dense blocks
     tile_loc_u: jnp.ndarray    # int32[E] rank-in-wb*n_tiles + tile
     blk_mask_u: jnp.ndarray    # f32[Bu, bs^nd] 1 on ghost slots
     dense_slot: Tuple[jnp.ndarray, ...]  # int32[Bf] wb row per group
-    band_slot: jnp.ndarray     # int32[Bband] wb row of each band block
     # dense-plane hypercube fast path (one entry per (family, face)):
     # conforming farfield ghost planes are computed as static plane
     # algebra over gathered boundary-block rows — zero narrow gathers,
@@ -155,8 +145,7 @@ class BlockedBC:
         if self.n_patch:
             win = self.patch_win    # ((wz,) wy): slow-dim window sizes
             # operand [B, (z,) y, x, C]; starts (b, (z0,) y0); the slice is
-            # full-width in x and C (narrow partial-row gathers serialize
-            # on TPU; full rows are ~free)
+            # full-width in x and C
             dn = lax.GatherDimensionNumbers(
                 offset_dims=tuple(range(1, nd + 2)),
                 collapsed_slice_dims=(0,),
@@ -170,12 +159,11 @@ class BlockedBC:
             parts.append((patch * self.patch_w[..., None]).sum(axis=1))
         if self.n_fb:
             # flat full-row takes (the block grid reshapes to [N, C] for
-            # free; 1 x C rows are the fast TPU gather shape). One take
-            # per stencil POINT, chained into the weighted sum: the
-            # single [Uf*K]-row take materializes a [Uf, K, C] cube whose
-            # reduction XLA lowers through a [C, Uf, K] relayout
-            # (~1 ms/application at bench scale); the chained form fuses
-            # each gather straight into its multiply-add.
+            # free). One take per stencil POINT, chained into the weighted
+            # sum: the single [Uf*K]-row take materializes a [Uf, K, C]
+            # cube whose reduction XLA lowers through a [C, Uf, K]
+            # relayout; the chained form fuses each gather straight into
+            # its multiply-add.
             P_flat = P3.reshape(-1, C)
             cells = self.fb_cell.reshape(self.n_fb, self.fb_width)
             acc = None
@@ -191,10 +179,9 @@ class BlockedBC:
 
         Sorted ghosts decompose into runs of consecutive cell ids =
         consecutive value rows AND consecutive block slots, so placement is
-        window extraction at static offsets. XLA gathers with partial slice
-        sizes serialize into per-row dynamic-slice loops on TPU (~0.5 us per
-        row!), so windows are read as FULL rows of a 16-phase shifted view
-        stack: phase p is the contiguous reslice g_flat[p*C:] viewed as
+        window extraction at static offsets, read as FULL rows of a 16-phase
+        shifted view stack (partial-slice gathers lower to per-row
+        dynamic-slice loops): phase p is the contiguous reslice g_flat[p*C:] viewed as
         [M, 16*C] rows; any 16-aligned tile of a run is one row of one
         phase. Per (ghost-containing 16-slot tile, covering run): one
         `take` row plus an interval mask. Only tiles that actually hold
@@ -237,10 +224,7 @@ class BlockedBC:
         """Apply all families' BCs; returns the updated grid state.
 
         Write-back goes through the XLA phase-view placement + block-row
-        scatter path. (A Pallas in-place kernel variant existed through
-        round 3 — exact on TPU but slower than this path because its
-        [*, C] VMEM windows pad to 128 lanes; removed rather than kept as
-        shelfware. The Pallas effort belongs to the RHS mega-kernel.)
+        scatter path.
         """
         if int(self.wb_blocks.shape[0]) == 0:
             return P3
@@ -248,8 +232,7 @@ class BlockedBC:
         npb = self.bs ** self.nd
         view = P3.reshape(P3.shape[0], npb * C)
         # ONE full-view row gather; every group below reads/writes the
-        # small union buffer (per-group full-view gathers/scatters each
-        # dragged a state relayout copy on TPU).  mode="clip": sharded
+        # small union buffer.  mode="clip": sharded
         # stacks pad wb_blocks with distinct OOB rows (>= B_loc) whose
         # reads clip to the last (dump) block and whose writes are
         # dropped by `_wb_scatter`; the default take mode fills NaN.
@@ -305,7 +288,7 @@ class BlockedBC:
         # general path's write-back
         dense_new = [self._dense_values(buf, i, fns, guard)
                      for i in range(len(self.dense_spec))]
-        buf = self._ghost_write(buf, g, cs=False)
+        buf = self._ghost_write(buf, g)
         for i, planes in enumerate(dense_new):
             buf = self._dense_write(buf, i, planes)
         return self._wb_scatter(view, buf, P3.shape)
@@ -318,9 +301,9 @@ class BlockedBC:
             mode="drop", unique_indices=True, indices_are_sorted=True,
         ).reshape(shape)
 
-    def _ghost_write(self, buf, g, *, cs):
+    def _ghost_write(self, buf, g):
         """Masked merge of the placed general-path ghosts into the union
-        buffer ([Bu, npb*C] cell-major rows, or [Bu, C*npb] cs rows)."""
+        buffer ([Bu, npb*C] cell-major rows)."""
         E = int(self.tile_gid.shape[0])
         if E == 0:
             return buf
@@ -336,13 +319,8 @@ class BlockedBC:
         ).reshape(Bu, npb, C)
         # where(), not blend-by-multiply: NaN in non-ghost placed slots
         # must not contaminate the kept state
-        if cs:
-            new = jnp.where(self.blk_mask_u[:, None, :] > 0,
-                            dense.transpose(0, 2, 1),
-                            buf.reshape(Bu, C, npb))
-        else:
-            new = jnp.where(self.blk_mask_u[..., None] > 0, dense,
-                            buf.reshape(Bu, npb, C))
+        new = jnp.where(self.blk_mask_u[..., None] > 0, dense,
+                        buf.reshape(Bu, npb, C))
         return new.reshape(Bu, npb * C)
 
     def _dense_values(self, buf, i, fns, guard):
@@ -388,127 +366,6 @@ class BlockedBC:
         def new_plane(li, p):
             old = lax.index_in_dim(blk, p, axis=ax, keepdims=False)
             m = mask[:, li][..., None]
-            return jnp.where(m > 0, planes[li], old)
-
-        blk = _concat_layer_update(blk, ax, bs, layers, side, new_plane)
-        return buf.at[rows].set(
-            blk.reshape(rows.shape[0], -1),
-            mode="drop", unique_indices=True, indices_are_sorted=True,
-        )
-
-    # ------------------------------------------------------------------
-    # channel-split mode: the single-chip 3D TPU march keeps the state in
-    # the Pallas kernels' native [B, C, bs, bs*bs] layout end to end
-    # (`ops.pallas_rhs.rk2_step_cs`); these mirrors apply the SAME BCs
-    # without ever materializing a cell-major full-state grid (the
-    # round-4 trace put ~10 ms/step of the 71 ms sphere bench in layout
-    # flips between the BC's cell-major views and the kernel layout).
-    # ------------------------------------------------------------------
-
-    def interpolate_cs(self, band_rows, C):
-        """Image-point values [U, C] from the gathered stencil-band rows
-        ([Bband, C*npb] — sliced out of the union buffer by `cs`).
-
-        The fb stencil cells live in a few hundred blocks near the wall:
-        transpose only those rows to cell-major and run the per-point
-        takes against the compact band — a small-source gather is ~3x
-        faster per row than the same rows against the full state
-        (round-4 microbench), and the state never leaves the cs
-        layout."""
-        npb = self.bs ** self.nd
-        band = band_rows.reshape(-1, C, npb).transpose(0, 2, 1) \
-            .reshape(-1, C)
-        cells = self.fb_cell_band.reshape(self.n_fb, self.fb_width)
-        acc = None
-        for k in range(self.fb_width):
-            t = jnp.take(band, cells[:, k], axis=0) * self.fb_w[:, k:k + 1]
-            acc = t if acc is None else acc + t
-        return acc
-
-    def cs(self, Pc, fns: Dict[str, Callable], *, guard: Callable = None):
-        """Apply all families' BCs on the channel-split state (3D fb-only
-        configurations: `build_blocked_bc` disables patch stencils at
-        nd == 3).  Same semantics and float behavior as ``__call__`` up
-        to gather source (identical rows, identical sum order)."""
-        assert self.n_patch == 0, "cs mode requires fb-only stencils"
-        if int(self.wb_blocks.shape[0]) == 0:
-            return Pc
-        C = Pc.shape[1]
-        npb = self.bs ** self.nd
-        view = Pc.reshape(Pc.shape[0], C * npb)
-        buf = lax.optimization_barrier(
-            jnp.take(view, self.wb_blocks, axis=0, mode=_take_mode()))
-        if int(self.ghosts.shape[0]) == 0:
-            dense_new = [self._dense_values_cs(buf, i, fns, guard)
-                         for i in range(len(self.dense_spec))]
-            for i, planes in enumerate(dense_new):
-                buf = self._dense_write_cs(buf, i, planes)
-            return self._wb_scatter(view, buf, Pc.shape)
-        band_rows = jnp.take(buf, self.band_slot, axis=0)
-        Pi = jnp.take(self.interpolate_cs(band_rows, C), self.g2u, axis=0)
-        r = None
-        for i, name in enumerate(self.names):
-            ri = fns[name](Pi, self.normals)
-            sel = (self.family == i)[:, None]
-            r = ri if r is None else jnp.where(sel, ri, r)
-        g = self.eta * Pi + (1.0 - self.eta) * r
-        if guard is not None:
-            g = guard(g)
-        dense_new = [self._dense_values_cs(buf, i, fns, guard)
-                     for i in range(len(self.dense_spec))]
-        buf = self._ghost_write(buf, g, cs=True)
-        for i, planes in enumerate(dense_new):
-            buf = self._dense_write_cs(buf, i, planes)
-        return self._wb_scatter(view, buf, Pc.shape)
-
-    def _dense_values_cs(self, buf, i, fns, guard):
-        """Ghost-plane values for dense group ``i``: [L, Bf, C, lat..].
-        ``buf``: the pre-write union buffer ([Bu, C*npb] cs rows)."""
-        fam, d, side, layers, p0, p1, w0, w1, etas = self.dense_spec[i]
-        bs, nd = self.bs, self.nd
-        npb = bs ** nd
-        C = buf.shape[-1] // npb
-        rows = self.dense_slot[i]
-        blk = jnp.take(buf, rows, axis=0, mode=_take_mode())
-        blk = blk.reshape((rows.shape[0], C) + (bs,) * nd)
-        ax = 2 + (nd - 1 - d)
-        Pi = (w0 * lax.index_in_dim(blk, p0, axis=ax, keepdims=False)
-              + w1 * lax.index_in_dim(blk, p1, axis=ax, keepdims=False))
-        # [Bf, C, lat..] -> [Bf*lat.., C] for the family callback (tiny:
-        # one plane per boundary block)
-        perm = (0,) + tuple(range(2, 1 + nd)) + (1,)
-        lat = Pi.shape[2:]
-        flat = Pi.transpose(perm).reshape(-1, C)
-        nvec = np.zeros(nd, np.float32)
-        nvec[d] = -1.0 if side else 1.0
-        nrm = jnp.broadcast_to(jnp.asarray(nvec), (flat.shape[0], nd))
-        r = fns[self.names[fam]](flat, nrm)
-        inv = (0, nd) + tuple(range(1, nd))
-        out = []
-        for eta in etas:
-            gl = eta * flat + (1.0 - eta) * r
-            if guard is not None:
-                gl = guard(gl)
-            out.append(gl.reshape((Pi.shape[0],) + lat + (C,))
-                       .transpose(inv))
-        return jnp.stack(out)
-
-    def _dense_write_cs(self, buf, i, planes):
-        """Masked RMW of group ``i``'s ghost planes into the union
-        buffer ([Bu, C*npb] cs rows)."""
-        fam, d, side, layers, p0, p1, w0, w1, etas = self.dense_spec[i]
-        bs, nd = self.bs, self.nd
-        npb = bs ** nd
-        C = buf.shape[-1] // npb
-        rows = self.dense_slot[i]
-        mask = self.dense_mask[i]
-        blk = jnp.take(buf, rows, axis=0, mode=_take_mode())
-        blk = blk.reshape((rows.shape[0], C) + (bs,) * nd)
-        ax = 2 + (nd - 1 - d)
-
-        def new_plane(li, p):
-            old = lax.index_in_dim(blk, p, axis=ax, keepdims=False)
-            m = mask[:, li][:, None]
             return jnp.where(m > 0, planes[li], old)
 
         blk = _concat_layer_update(blk, ax, bs, layers, side, new_plane)
@@ -843,18 +700,9 @@ def _compile_bc_tables(bs: int, nd: int, fams: dict, hcube_fam_idx,
     if Uf:
         fb_cell = u_idx[Up:].reshape(-1).astype(np.int32)
         fb_w = u_w[Up:]
-        # compact band (cs mode): gathers against the few hundred blocks
-        # that actually hold stencil cells run ~3x faster per row than
-        # against the full state (round-4 small-source microbench)
-        band_u = np.unique(fb_cell // npb)
-        fb_cell_band = (np.searchsorted(band_u, fb_cell // npb) * npb
-                        + fb_cell % npb).astype(np.int32)
-        band_blocks = band_u.astype(np.int32)
     else:
         fb_cell = np.zeros(0, np.int32)
         fb_w = np.zeros((0, K), np.float32)
-        fb_cell_band = np.zeros(0, np.int32)
-        band_blocks = np.zeros(0, np.int32)
 
     # ---- runs -> per-ghost-tile phase-view rows -----------------------------
     n_tiles = npb // 16
@@ -936,13 +784,11 @@ def _compile_bc_tables(bs: int, nd: int, fams: dict, hcube_fam_idx,
 
     # ---- union write-back tables -------------------------------------------
     # ONE full-view row gather + ONE row scatter per BC application: the
-    # ghost-bearing, dense-plane and stencil-band blocks are unioned into
-    # wb_blocks; every per-group take/set then runs against the small
-    # gathered buffer (full-view gathers/scatters each dragged a
-    # state-relayout copy on TPU — ~0.2 ms per scatter at bench scale).
+    # ghost-bearing and dense-plane blocks are unioned into wb_blocks;
+    # every per-group take/set then runs against the small gathered
+    # buffer.
     wb_parts = ([gblk.astype(np.int64)]
-                + [r.astype(np.int64) for r in dense_rows_l]
-                + [band_blocks.astype(np.int64)])
+                + [r.astype(np.int64) for r in dense_rows_l])
     wb_blocks = (np.unique(np.concatenate(wb_parts)) if wb_parts
                  else np.zeros(0, np.int64))
     tile_loc_u = np.zeros(0, np.int32)
@@ -956,16 +802,12 @@ def _compile_bc_tables(bs: int, nd: int, fams: dict, hcube_fam_idx,
     dense_slot = tuple(
         np.searchsorted(wb_blocks, r.astype(np.int64)).astype(np.int32)
         for r in dense_rows_l)
-    band_slot = np.searchsorted(
-        wb_blocks, band_blocks.astype(np.int64)).astype(np.int32)
 
     fields = dict(
         patch_start=patch_start,
         patch_w=patch_w,
         fb_cell=fb_cell,
         fb_w=np.ascontiguousarray(fb_w, dtype=np.float32),
-        band_blocks=band_blocks,
-        fb_cell_band=fb_cell_band,
         g2u=g2u,
         normals=normals[order],
         eta=eta[order][:, None],
@@ -983,7 +825,6 @@ def _compile_bc_tables(bs: int, nd: int, fams: dict, hcube_fam_idx,
         tile_loc_u=tile_loc_u,
         blk_mask_u=blk_mask_u,
         dense_slot=dense_slot,
-        band_slot=band_slot,
         dense_mask=tuple(dense_mask_l),
     )
     meta = dict(
@@ -1155,7 +996,6 @@ def _stack_bc_fields(tabs, metas, bs, nd, B_loc, n_groups):
     E_max = max(t["tile_gid"].shape[0] for t in tabs)
     O_max = max(t["ovf_src"].shape[0] for t in tabs)
     Bu_max = max(t["wb_blocks"].shape[0] for t in tabs)
-    Bb_max = max(t["band_slot"].shape[0] for t in tabs)
     Bf_max = [max(t["dense_slot"][g].shape[0] for t in tabs)
               for g in range(n_groups)]
 
@@ -1175,11 +1015,7 @@ def _stack_bc_fields(tabs, metas, bs, nd, B_loc, n_groups):
         put("patch_w", pad_rows(t["patch_w"], Up_max))
         put("fb_cell",
             pad_rows(t["fb_cell"].reshape(Uf, K), Uf_max).reshape(-1))
-        put("fb_cell_band",
-            pad_rows(t["fb_cell_band"].reshape(Uf, K), Uf_max).reshape(-1))
         put("fb_w", pad_rows(t["fb_w"], Uf_max))
-        put("band_blocks", pad_rows(t["band_blocks"], Bb_max))
-        put("band_slot", pad_rows(t["band_slot"], Bb_max))
         put("g2u", pad_rows(g2u, G_max))
         nrm = t["normals"]
         if nrm.shape[0] < G_max:

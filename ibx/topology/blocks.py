@@ -1,4 +1,4 @@
-"""Block-structured compute tables: the TPU fast path compiler (host side).
+"""Block-structured compute tables: the block fast path compiler (host side).
 
 The octree mesh is a forest of uniform ``bs^nd`` Cartesian blocks
 (``src/mesher.jl:926-933`` in the reference). Face classification:

@@ -6,9 +6,9 @@ Counterpart of reference ``src/ImmersedBoundary.jl:483-786``. The mesh is
 All device-side structures are fixed-shape, so every downstream operation
 compiles to a single XLA executable per mesh.
 
-TPU-first departures from the reference:
+Departures from the reference:
   * partitions are device-count-sized (default 1), not 100k-cell chunks —
-    on TPU the partition axis IS the device mesh axis;
+    the partition axis IS the device mesh axis;
   * owned cells occupy the first ``n_own`` local slots (scatter = slice);
   * boundary stencil cells are folded into the partition skirt so BC
     imposition never needs non-local gathers;
@@ -607,7 +607,7 @@ class Domain(DomainExecutionMixin):
         # ---- single device placement pass --------------------------------
         # One bulk transfer of long-lived pytrees. Do NOT allocate/free
         # device buffers during the host compile above: odd-sized churn
-        # fragments the TPU allocator and slows every later kernel launch.
+        # fragments the device allocator.
         self.partitions = jax.device_put(self.partitions)
         self.boundaries = jax.device_put(self.boundaries)
         for surf in self.surfaces.values():
@@ -759,10 +759,9 @@ class Domain(DomainExecutionMixin):
 
     def fused_boundary(self, names: Sequence[str]) -> "FusedBoundary":
         """Fuse several boundary families into ONE image-interpolation gather
-        and ONE sorted ghost scatter (gathers/scatters cost ~30-60 ns per row
-        on TPU, so batching families is a real win; see
-        ``FusedBoundary.__call__``). Ghost sets must be disjoint (they are for
-        distinct families by construction). Single-partition domains only —
+        and ONE sorted ghost scatter (see ``FusedBoundary.__call__``). Ghost
+        sets must be disjoint (they are for distinct families by
+        construction). Single-partition domains only —
         the sharded executor localizes its own fused tables.
         """
         if self.n_partitions != 1:

@@ -8,6 +8,7 @@ x-rows, and how big the touched-block band is.
 Run CPU-side:  python scripts/bc3d_stats.py [wall_h=0.03] [block_size=16]
 """
 
+import os
 import sys
 import time
 
@@ -16,7 +17,7 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main():

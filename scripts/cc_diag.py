@@ -9,13 +9,14 @@ cut tables (alpha, wall_coef, apertures, 2:1 cut faces, TE distance).
         seed_npz=/tmp/te_state_cc_5.npz seed_wall_h=5e-3 ...
 """
 
+import os
 import sys
 import time
 
 import numpy as np
 import jax
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ibx.cases import build_rae2822, force_coefficients  # noqa: E402
 

@@ -9,6 +9,7 @@ until it pins.
     python scripts/cc_diag2.py wall_h=5e-4 block_size=8 x=0.39844513 y=-0.0585556
 """
 
+import os
 import sys
 import time
 
@@ -18,7 +19,7 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ibx.cases import build_rae2822  # noqa: E402
 

@@ -7,6 +7,7 @@ gate) and the values each path writes for the saved blow-up state.
     python scripts/cc_diag3.py wall_h=5e-4 block_size=8 feature_h=2.5e-4
 """
 
+import os
 import sys
 import time
 
@@ -16,7 +17,7 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ibx.cases.rae2822 import build_rae2822  # noqa: E402
 

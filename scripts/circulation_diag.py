@@ -11,11 +11,12 @@ Loads saved fine-mesh states and answers: where does the circulation go?
 CPU-only analysis (no march).
 """
 
+import os
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")

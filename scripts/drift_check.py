@@ -1,4 +1,4 @@
-"""TPU drift check: restart each committed RAE2822 oracle level from its
+"""Drift check: restart each committed RAE2822 oracle level from its
 stored converged state, march one full limit-cycle window, and report the
 cycle-averaged wall-Cp reproduction error (the same assertion as
 tests/test_rae2822_regression.py::test_rae2822_cp_drift_from_converged,
@@ -17,7 +17,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ibx.cases import build_rae2822, wall_cp          # noqa: E402
 
@@ -51,7 +51,7 @@ def check(tag):
 
 # Steady levels take the <1e-3 band outright; levels with a residual
 # shock cycle (medium, flagship) take the cycling band (same split as
-# tests/test_rae2822_regression.py). Measured (TPU, round 4): fine
+# tests/test_rae2822_regression.py). Measured (round 4): fine
 # 5.9e-5 / xfine 2.9e-5 / flagship 3.7e-3.
 BAND = {"coarse": 5e-3, "medium": 5e-3, "flagship": 5e-3}
 

@@ -28,12 +28,13 @@ Usage: python scripts/fas_diagnosis.py [wall_h=2e-2] [warm_steps=2000]
 """
 
 import json
+import os
 import sys
 import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import os                                                   # noqa: E402
 

@@ -18,6 +18,7 @@ physical, equal to the production map elsewhere).
 Usage: python scripts/fas_smoother_probe.py [wall_h=2e-2] [cfl=0.35]
 """
 
+import os
 import sys
 import time
 
@@ -29,7 +30,7 @@ jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ibx.cases.rae2822 import RAE_DAT, build_rae2822            # noqa: E402
 from ibx.geometry import load_surface, merge_points             # noqa: E402

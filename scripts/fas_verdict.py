@@ -19,13 +19,14 @@ Usage: python scripts/fas_verdict.py [wall_h=0.06] [budget_s=240]
 """
 
 import json
+import os
 import sys
 import time
 
 import numpy as np
 import jax
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ibx.cases.wing3d_rans_fas import build_wing3d_rans_fas  # noqa: E402
 

@@ -4,7 +4,7 @@ The 3D wing harness (fas_verdict.py) showed the workload-5 residual is
 essentially FLAT over any practical budget (0.989 of the warm-start
 value after 4.3k steps / 240 s at 810k cells) — nothing can show a drop
 there in minutes.  This script asks the question on a case where
-convergence actually happens inside a TPU budget: subsonic (M = 0.4,
+convergence actually happens inside an accelerator budget: subsonic (M = 0.4,
 no shock) RAE2822, where a steady state exists and multigrid should
 shine if it ever does (smooth elliptic-dominated flow; reference FAS
 semantics ``src/solver.jl:39-91``).
@@ -37,7 +37,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ibx.cases.rae2822 import RAE_DAT                      # noqa: E402
 from ibx.geometry import (DistanceField, build_mesh,        # noqa: E402

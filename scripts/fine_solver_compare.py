@@ -8,17 +8,18 @@ residual smoothing and implicit relaxation. The post-fix fine level
 |dCp| 6e-5), the friendliest regime for acceleration. Rematch from
 freestream: wall-clock to |Cl - Cl*| < tol sustained.
 
-Run on the TPU:  python scripts/fine_solver_compare.py
+Run on the GPU:  python scripts/fine_solver_compare.py
 """
 
 import json
+import os
 import sys
 import time
 
 import numpy as np
 import jax
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ibx.cases import build_rae2822, force_coefficients  # noqa: E402
 

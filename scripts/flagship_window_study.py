@@ -25,7 +25,7 @@ import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax                                           # noqa: E402
 import jax.numpy as jnp                              # noqa: E402

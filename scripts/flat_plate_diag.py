@@ -18,11 +18,12 @@ Usage: python scripts/flat_plate_diag.py [steps=30000] [closure=...]
 """
 
 import json
+import os
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax                                                   # noqa: E402
 

@@ -26,7 +26,7 @@ import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # numpy reimplementation of ibx.physics.turbulence.wall_function (kept
 # dependency-free so this script is a truly independent check)

@@ -1,4 +1,4 @@
-"""Converge the turbulent flat-plate RANS case on TPU and commit the Cf
+"""Converge the turbulent flat-plate RANS case on the GPU and commit the Cf
 profile as tests/data/flat_plate_cf.npz (asserted against the published
 Prandtl / Schultz-Grunow correlations by tests/test_flat_plate.py).
 
@@ -17,7 +17,7 @@ import time
 import numpy as np
 import jax
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ibx.cases.flat_plate import (  # noqa: E402
     build_flat_plate,

@@ -17,7 +17,7 @@ import jax                  # noqa: E402
 
 jax.config.update("jax_platforms", os.environ["JAX_PLATFORMS"])
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ibx.cases.flat_plate import (    # noqa: E402
     build_flat_plate, cf_schultz_grunow, skin_friction_profile)

@@ -1,13 +1,14 @@
 """Wall-clock-to-convergence: explicit RK2 vs RK2 + implicit residual
 smoothing, measured against the converged-oracle Cl band (VERDICT #7)."""
 
+import os
 import sys
 import time
 
 import numpy as np
 import jax
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ibx.cases import build_rae2822, force_coefficients  # noqa: E402
 

@@ -23,7 +23,7 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ibx.cases.rae2822_block_sharded import build_rae2822_block_sharded  # noqa: E402
 

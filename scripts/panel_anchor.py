@@ -11,11 +11,12 @@ Case 9 measured Cl = 0.803 VISCOUS at these conditions, and inviscid
 solutions sit above that).
 """
 
+import os
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def panel_cl(xy: np.ndarray, alpha_deg: float, n_panels: int = 200) -> float:

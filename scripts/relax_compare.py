@@ -8,10 +8,11 @@ phase is where stronger smoothers should pay. Usage:
 
     python scripts/relax_compare.py [schemes...]
 
-Runs on the TPU. Schemes: rk2, euler, rk2_frozen, irs, pi, pi_frozen.
+Runs on the GPU. Schemes: rk2, euler, rk2_frozen, irs, pi, pi_frozen.
 """
 
 
+import os
 import sys
 import time
 
@@ -19,7 +20,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ibx.cases import build_rae2822, force_coefficients  # noqa: E402
 from ibx.ops import block_ops as bops  # noqa: E402

@@ -7,13 +7,14 @@ the ppermute itself is a self-copy at 1 device).
 Usage: python scripts/sharded_overhead.py [wall_h] [steps] [overlap]
 """
 
+import os
 import sys
 import time
 
 import numpy as np
 import jax
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ibx.cases import build_rae2822  # noqa: E402
 from ibx.cases.rae2822_block_sharded import build_rae2822_block_sharded  # noqa: E402

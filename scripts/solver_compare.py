@@ -3,10 +3,11 @@
 Marches the RAE2822 Euler case with each scheme and reports steps /
 residual-evaluations / wall-clock to reach a settled lift coefficient
 (|Cl - Cl_final| < tol sustained) and the residual drop achieved. Run on
-the TPU.
+the GPU.
 """
 
 import json
+import os
 import sys
 import time
 
@@ -14,7 +15,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ibx.cases import build_rae2822, force_coefficients  # noqa: E402
 

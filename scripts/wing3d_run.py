@@ -7,13 +7,14 @@ interleaving FAS V-cycles, and reports residuals/timing.
 Usage: python scripts/wing3d_run.py [wall_h] [steps] [cycles_every]
 """
 
+import os
 import sys
 import time
 
 import numpy as np
 import jax
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from ibx.cases.wing3d_rans_fas import build_wing3d_rans_fas  # noqa: E402
 

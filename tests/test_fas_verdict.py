@@ -1,4 +1,4 @@
-"""FAS verdict oracle (VERDICT r4 item 2): the committed TPU harness
+"""FAS verdict oracle (VERDICT r4 item 2): the committed harness
 curves (scripts/fas_verdict2d.py, solved-cell functional) must show the
 coarse-grid correction paying — fas arms reach fixed residual drops
 faster than pure smoothing and than the production march.

@@ -1,6 +1,6 @@
 """Flat-plate RANS case: machinery checks (CPU).
 
-The quantitative Cf-vs-correlation validation runs on TPU
+The quantitative Cf-vs-correlation validation is a long accelerator run
 (scripts/flat_plate_validate.py) and its result is recorded in
 tests/data/flat_plate_cf.npz + asserted in test_flat_plate_cf_oracle.
 """
@@ -68,7 +68,7 @@ def test_correlations():
 
 
 def test_flat_plate_cf_oracle():
-    """Assert the committed TPU-converged Cf profile matches the published
+    """Assert the committed converged Cf profile matches the published
     correlations (generated by scripts/flat_plate_validate.py)."""
     path = os.path.join(os.path.dirname(__file__), "data",
                         "flat_plate_cf.npz")
@@ -81,7 +81,7 @@ def test_flat_plate_cf_oracle():
     sel = (x > 0.3) & (x < 1.0)
     corr = cf_schultz_grunow(re * x[sel])
     rel = cf[sel] / corr - 1.0
-    # Measured (TPU, 30k steps, Re 5e6, y+ ~ 130): the converged level
+    # Measured (30k steps, Re 5e6, y+ ~ 130): the converged level
     # sits a uniform -24% below Schultz-Grunow. Round-4 closure isolation
     # (scripts/flat_plate_ode.py): an INDEPENDENT numpy parabolic
     # boundary-layer march of the SAME simplified Wray-Agarwal + log-law
@@ -104,7 +104,7 @@ def test_flat_plate_cf_lowyp_oracle():
     """Low-y+ arm (VERDICT r3 item 5, second half): wall_h=6.25e-4 puts
     the first cell center at y+ ~ 60 — the regime whose round-3 march
     DIVERGED. With the round-3/4 geometry + guard fixes it marches: the
-    committed oracle is a 30k-step TPU run (queue log round 4), its Cf
+    committed oracle is a 30k-step run (round 4), its Cf
     settling toward the same closure-level deficit class as the default
     arm (simplified-WA closure bias, scripts/flat_plate_ode.py)."""
     path = os.path.join(os.path.dirname(__file__), "data",

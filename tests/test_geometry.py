@@ -18,8 +18,7 @@ from ibx.geometry import (
     refine_octree,
     refine_to_length,
 )
-
-RAE_DAT = "/root/reference/test/rae2822.dat"
+from ibx.cases.rae2822 import RAE_DAT
 
 
 def test_polyline_closed_open():

@@ -1,8 +1,8 @@
 """RAE2822 Euler accuracy regression against converged stored solutions.
 
 Oracles (tests/data/rae2822_cp_{coarse,medium,fine}.npz) are long-march
-converged wall-Cp snapshots generated by scripts/make_cp_oracle.py on the
-real TPU (20k-30k steps). The flow sits in a small shock limit cycle
+converged wall-Cp snapshots generated by scripts/make_cp_oracle.py on an
+accelerator (20k-30k steps). The flow sits in a small shock limit cycle
 (coarse: Cl = 0.84 +/- 0.02; measured phase-to-phase deltas vs the
 snapshot: mean |dCp| 0.02-0.08, off-shock max <= 0.12), so assertions are
 quantitative bands sized to the cycle, not correlations.
@@ -30,7 +30,7 @@ def test_oracles_consistent_across_mesh_levels():
     Regenerated after the round-3 projection fix (geometry/refine.py:
     f32-epsilon denominators vertex-snapped fine-mesh ghost projections;
     the former 'accuracy floor' — lift collapse below wall_h=5e-3 — was
-    that bug, not the scheme). Measured ladder (TPU, fixed geometry):
+    that bug, not the scheme). Measured ladder (fixed geometry):
     coarse 0.837 +/- 0.02 (limit cycle), medium 0.899 +/- 0.008,
     fine 0.8981 STEADY (phase mean |dCp| 6e-5), xfine/flagship extend
     it. Medium<->fine agree to ~1e-3 in Cl; coarse sits ~0.06 low
@@ -95,8 +95,8 @@ def test_rae2822_cp_quick():
     "medium",
     pytest.param("fine", marks=pytest.mark.slow),   # 4000 steps x 60k cells
     pytest.param("xfine", marks=pytest.mark.slow),  # 4000 steps x 111k cells
-    # flagship (881k cells) is TPU-only: scripts/drift_check.py runs the
-    # same assertion there (results recorded in BASELINE.md round 4)
+    # flagship (881k cells) is accelerator-only: scripts/drift_check.py
+    # runs the same assertion there (results recorded in BASELINE.md)
 ])
 def test_rae2822_cp_drift_from_converged(tag):
     """Tight accuracy band: restart from the COMMITTED converged medium
@@ -133,15 +133,16 @@ def test_rae2822_cp_drift_from_converged(tag):
     cp_run = np.stack(cps).mean(axis=0)
     cp_ref = ref["cp_phases"].mean(axis=0)
     d = np.abs(cp_run - cp_ref)
-    # measured on TPU (round 3): medium (limit-cycling) mean 1.7e-3,
+    # measured (round 3): medium (limit-cycling) mean 1.7e-3,
     # off-shock max 4.0e-3, shock-region max 8.7e-2 (shock-position
     # jitter within the cycle). The FINE level is a steady state (phase
     # mean |dev| 5.9e-5), so there the <1e-3 Cp reproduction target is
     # met outright. Bands at ~3x the measurements:
     if tag in ("fine", "xfine"):
         # steady levels (measured cycle-mean |dev|: fine 5.9e-5, xfine
-        # 2.9e-5 on TPU): the <1e-3 Cp reproduction target is asserted
-        # outright. Flagship (881k cells, TPU-only via drift_check.py)
+        # 2.9e-5): the <1e-3 Cp reproduction target is asserted
+        # outright. Flagship (881k cells, accelerator-only via
+        # drift_check.py)
         # carries a residual shock cycle: measured cycle-mean 3.7e-3 —
         # it takes the cycling band below, not this one.
         assert d.mean() < 1e-3, d.mean()
@@ -157,7 +158,7 @@ def test_rae2822_cp_drift_from_converged(tag):
 def test_flagship_window_accuracy_contract():
     """VERDICT r4 item 5: the flagship (881k cells) carries a residual
     shock limit cycle; its Cp reproduction meets the <1e-3 target with a
-    32x500-step averaging window (committed TPU study,
+    32x500-step averaging window (committed study,
     scripts/flagship_window_study.py): consecutive-window cycle means
     agree to 8.5e-4, halving as the window doubles (incoherent cycle
     noise), while the stored 8-window oracle mean carries its own ~3e-3

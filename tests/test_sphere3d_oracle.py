@@ -2,7 +2,7 @@
 icosphere vs the incompressible potential-flow anchor (VERDICT r3 item 2).
 
 The committed oracle (tests/data/sphere3d_cp.npz, 663k cells at
-wall_h=0.05 / block_size=8, 30k TPU steps via
+wall_h=0.05 / block_size=8, 30k steps via
 scripts/make_sphere_cp_oracle.py) stores the converged surface Cp, the
 converged state (for the drift test), and the Cd history.
 
@@ -17,7 +17,7 @@ boundary layer and the flow separates into a steady wake — suction peak
 pressure drag Cd -> +0.249 instead of d'Alembert's 0. Those wake
 characteristics are asserted too: they are the scheme's converged 3D
 behavior, exercised to a number (reference 3D ghost machinery:
-/root/reference/src/ImmersedBoundary.jl:194-326).
+reference ``src/ImmersedBoundary.jl:194-326``).
 """
 
 import json
@@ -89,10 +89,10 @@ def test_sphere3d_cp_drift_from_converged():
     """Restart from the committed converged state and march 200 steps:
     the surface Cp must reproduce (drift assertion, VERDICT r3 item 2).
 
-    Band calibration (round 5): the oracle state was converged by the
-    TPU channel-split Pallas march, while this CPU-tier restart marches
-    the XLA block path — the two paths agree to ~1e-4 relative per
-    step (tests/test_pallas_rhs.py), and over 200 steps the separated
+    Band calibration (round 5): the oracle state was converged by a
+    fused-kernel march since removed, while this CPU-tier restart marches
+    the XLA block path — the two paths agreed to ~1e-4 relative per
+    step, and over 200 steps the separated
     wake amplifies that seed plus its own slow creep (Cp_min -0.821 ->
     -0.829 over the oracle's last 6k steps) to a measured mean |dCp| =
     1.386e-2, bitwise-stable across rounds (verified identical at the

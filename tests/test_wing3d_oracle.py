@@ -1,9 +1,9 @@
 """Workload-5 quantitative convergence oracle (VERDICT r4 item 7).
 
-Asserts the committed TPU run (scripts/wing3d_converge.py ->
+Asserts the committed run (scripts/wing3d_converge.py ->
 tests/data/wing3d_oracle.npz): a real residual drop and a settled,
 physically sensible lift coefficient.  Fast tier — reads the stored
-history; the 807k-cell case itself is TPU-scale (regeneration command in
+history; the 807k-cell case itself is accelerator-scale (regeneration command in
 the script docstring).
 """
 
